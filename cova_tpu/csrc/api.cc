@@ -1,10 +1,9 @@
 // C API for ctypes binding (cova_tpu/codec/__init__.py).
 //
 // Replaces the reference's GStreamer element graph plumbing with three
-// host-side services:
+// host-side services (selective pixel decode lives in pixdec.cc):
 //   * MP4 demux + GoP index       (reference: qtdemux/h264parse/gopsplit)
 //   * batch entropy decode        (reference: 32x patched avdec_h264)
-//   * selective pixel decode      (reference: nvv4l2decoder / NVDEC)
 // Batch entropy decode is parallel at GoP granularity — the reference's
 // gopsplit fan-out (gstgopsplit.cpp:501-661): within a GoP, frames
 // decode sequentially in decode order so the decoder's DPB holds the
@@ -25,7 +24,6 @@
 
 #include "entdec.h"
 #include "mp4.h"
-#include "pixdec.h"
 
 using namespace cova;
 
@@ -578,73 +576,6 @@ int cova_entdec_decode_range(void* h, int start, int count, int threads,
   return cova_entdec_decode_indices(h, idx.data(), count, threads, mb_w, mb_h,
                                     mb_class, mv_x, mv_y, nnz, slice_types,
                                     nullptr, nullptr);
-}
-
-// ---------------------------------------------------------------------------
-// Pixel decoder
-// ---------------------------------------------------------------------------
-
-struct PixDecHandle {
-  std::unique_ptr<PixelDecoder> dec;
-  std::deque<DecodedFrame> frames;
-  DecodedFrame last;  // last popped frame (for MV queries)
-};
-
-void* cova_pixdec_create(const uint8_t* extradata, int size, int export_mvs) {
-  auto* h = new PixDecHandle();
-  h->dec.reset(new PixelDecoder(extradata, (size_t)size, export_mvs != 0));
-  if (!h->dec->ok()) {
-    delete h;
-    return nullptr;
-  }
-  return h;
-}
-
-void cova_pixdec_destroy(void* hv) { delete (PixDecHandle*)hv; }
-
-// Send one AU; returns number of frames now queued, or -1 on error.
-int cova_pixdec_send(void* hv, const uint8_t* au, int size, int64_t pts) {
-  auto* h = (PixDecHandle*)hv;
-  std::vector<DecodedFrame> out;
-  if (!h->dec->send(au, (size_t)size, pts, &out)) return -1;
-  for (auto& f : out) h->frames.push_back(std::move(f));
-  return (int)h->frames.size();
-}
-
-int cova_pixdec_flush(void* hv) {
-  auto* h = (PixDecHandle*)hv;
-  std::vector<DecodedFrame> out;
-  if (!h->dec->flush(&out)) return -1;
-  for (auto& f : out) h->frames.push_back(std::move(f));
-  return (int)h->frames.size();
-}
-
-// Pop the oldest queued frame into caller I420 buffers. Returns 1 on
-// success, 0 if queue empty. Buffers must hold w*h and (w/2)*(h/2).
-int cova_pixdec_pop(void* hv, uint8_t* y, uint8_t* u, uint8_t* v,
-                    int64_t* pts, int* width, int* height) {
-  auto* h = (PixDecHandle*)hv;
-  if (h->frames.empty()) return 0;
-  h->last = std::move(h->frames.front());
-  h->frames.pop_front();
-  *pts = h->last.pts;
-  *width = h->last.width;
-  *height = h->last.height;
-  if (y) memcpy(y, h->last.y.data(), h->last.y.size());
-  if (u) memcpy(u, h->last.u.data(), h->last.u.size());
-  if (v) memcpy(v, h->last.v.data(), h->last.v.size());
-  return 1;
-}
-
-// Motion vectors of the last popped frame: 7 int32 per record
-// {mx_q4, my_q4, dst_x, dst_y, w, h, source}. Returns record count.
-int cova_pixdec_last_mvs(void* hv, int32_t* buf, int cap_records) {
-  auto* h = (PixDecHandle*)hv;
-  int n = (int)(h->last.mvs.size() / 7);
-  if (!buf) return n;
-  if (n > cap_records) n = cap_records;
-  memcpy(buf, h->last.mvs.data(), (size_t)n * 7 * sizeof(int32_t));
-  return n;
 }
 
 }  // extern "C"

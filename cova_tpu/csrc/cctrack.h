@@ -2,7 +2,7 @@
 //
 // The reference runs both on CPU (bboxcc's OpenCV connected components,
 // cova-rs/sort's Kalman+Hungarian, cova's tracker.rs seen/min_required
-// bookkeeping); the TPU keeps the dense FLOPs (BlobNet) and this module
+// bookkeeping); the accelerator keeps the dense FLOPs (BlobNet) and this module
 // keeps the branchy integer control logic where it is fastest. The JAX
 // implementations (cova_tpu/ops/cc.py, cova_tpu/tracker/) remain the
 // all-device variants used by the sharded multi-chip path and tests;

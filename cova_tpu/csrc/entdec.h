@@ -2,7 +2,7 @@
 // per-macroblock metadata [mb_class, mv_x, mv_y, residual] without any
 // pixel reconstruction (no IDCT, no MC, no deblocking).
 //
-// This is the TPU-native replacement for the reference's patched FFmpeg
+// This is the first-party replacement for the reference's patched FFmpeg
 // avdec_h264 (reference contract: /root/reference/README.md:94-114 and
 // the metapreprocess consumer cova-rs/gst-plugins/src/metapreprocess/
 // imp.rs:288-332: leading (W/16)*(H/16)*4 bytes = packed RGBA per-MB

@@ -1,8 +1,10 @@
-// Selective pixel decoder: wraps the system libavcodec H.264 software
-// decoder for the few frames the cova scheduler selects for full decode.
-// This fills the role the closed NVDEC hardware decoder plays in the
-// reference (reference: nvv4l2decoder in pipeline/cova/pipeline.py:304);
-// the compressed-domain fast path never touches it.
+// Selective pixel decoder: wraps libavcodec's H.264 software decoder
+// for the few frames the cova scheduler selects for full decode. This
+// fills the role the NVDEC hardware decoder plays in the reference
+// (reference: nvv4l2decoder in pipeline/cova/pipeline.py:304); the
+// compressed-domain fast path never touches it. libavcodec is opened at
+// run time (pixdec.cc), so this builds into its own library,
+// libcovapix.so, that only the pixel stage loads.
 //
 // Also doubles as the validation oracle for the first-party entropy
 // decoder: with export_mvs enabled, libavcodec's per-block motion vectors
@@ -11,6 +13,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <set>
 #include <vector>
 
 namespace cova {
@@ -24,6 +27,11 @@ struct DecodedFrame {
   // {src_x_q4, src_y_q4, dst_x_q4, dst_y_q4, w, h, source} int32s.
   std::vector<int32_t> mvs;
 };
+
+// Open libavcodec (`path`, or the default library names when null).
+// Idempotent; false with libavcodec_error() set when unusable.
+bool load_libavcodec(const char* path);
+const char* libavcodec_error();
 
 class PixelDecoder {
  public:
@@ -46,6 +54,7 @@ class PixelDecoder {
   void* ctx_ = nullptr;    // AVCodecContext*
   void* frame_ = nullptr;  // AVFrame*
   void* pkt_ = nullptr;    // AVPacket*
+  std::multiset<int64_t> pending_pts_;  // sent, not yet decoded
   bool ok_ = false;
 };
 

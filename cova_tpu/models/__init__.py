@@ -1,2 +1,1 @@
 from cova_tpu.models.blobnet import BlobNet, BlobNetConfig  # noqa: F401
-from cova_tpu.models.yolov4 import YOLOv4, create_yolov4  # noqa: F401

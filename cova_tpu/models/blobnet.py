@@ -1,4 +1,4 @@
-"""BlobNet — the compressed-domain foreground segmentation CNN, in Flax.
+"""BlobNet — the compressed-domain foreground segmentation CNN, in plain JAX.
 
 Architecture parity with the reference Keras model (reference:
 utils/model/{blobnet,encoder,decoder,pointwise}.py and training config
@@ -15,13 +15,13 @@ utils/train-blobnet.py:57-69):
   followed by center crop/pad to the skip shape, BatchNorm and skip
   concat (except the last), final 1x1 conv + sigmoid.
 
-TPU-first re-design notes: the reference's Conv3D kernels are (1,3,3) —
-temporally degenerate — so the encoder here folds T into the batch axis
-and runs plain NHWC Conv2D (MXU-friendly, no transposes); the only
-temporal mixing, the point-wise block, becomes an einsum over a (T,T)
-matrix. Layout is NHWC throughout (the reference is NCTHW, channels
-first, which would force relayouts on TPU). Compute dtype bfloat16 with
-float32 params/statistics is supported via the `dtype` argument.
+The reference's Conv3D kernels are (1,3,3) — temporally degenerate — so
+the encoder folds T into the batch axis and runs NHWC Conv2D; the only
+temporal mixing, the point-wise block, is an einsum over a (T,T) matrix.
+
+Parameters are a plain pytree {"params": ..., "batch_stats": ...} whose
+keys (Conv_0, BatchNorm_0, PointWiseTemporal_0/mix_0, ConvTranspose_0,
+...) are those of the committed artifacts/*.npz weight files.
 
 Input: (B, T=4, H=45, W=80, C) normalized macroblock metadata.
 The SHIPPED contract (artifacts/blobnet_demo*.npz, since round 3) is
@@ -44,11 +44,15 @@ output, as examples/train_blobnet.py does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+from jax import lax
+
+BN_MOMENTUM = 0.99
+BN_EPSILON = 1e-5
+_DN = ("NHWC", "HWIO", "NHWC")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,41 +68,13 @@ class BlobNetConfig:
     in_channels: int = 3
 
 
-class PointWiseTemporal(nn.Module):
-    """Residual temporal-mixing block (reference: utils/model/pointwise.py).
-
-    x: (B, T, H, W, C). Each inner layer is a TxT dense mix over the
-    temporal axis (the reference's Conv1D(filters=T, kernel 1, no bias)
-    with the T axis as channels), relu and dropout, then residual + relu.
-    """
-
-    layers: int
-    timestep: int
-    dropout: float
-    dtype: jnp.dtype = jnp.float32
-
-    @nn.compact
-    def __call__(self, x, *, train: bool = False):
-        h = x
-        for i in range(self.layers):
-            w = self.param(
-                f"mix_{i}",
-                nn.initializers.lecun_normal(),
-                (self.timestep, self.timestep),
-                jnp.float32,
-            )
-            h = jnp.einsum("bthwc,ts->bshwc", h, w.astype(self.dtype))
-            h = nn.relu(h)
-            h = nn.Dropout(self.dropout, deterministic=not train)(h)
-        return nn.relu(h + x)
-
-
 def _pool_pad(x):
     """MaxPool (2,2) over H,W then zero-pad top/left when the unpooled dim
     was odd (reference: encoder.py:63-71 pads (1,0) after pooling)."""
     b, t, h, w, c = x.shape
-    y = nn.max_pool(
-        x.reshape(b * t, h, w, c), window_shape=(2, 2), strides=(2, 2)
+    y = lax.reduce_window(
+        x.reshape(b * t, h, w, c), -jnp.inf, lax.max,
+        (1, 2, 2, 1), (1, 2, 2, 1), "VALID",
     )
     ph = 1 if h % 2 else 0
     pw = 1 if w % 2 else 0
@@ -132,32 +108,148 @@ def _crop_or_pad_center(x, th, tw):
     return x
 
 
-class BlobNet(nn.Module):
+class _Train:
+    """Train-mode context of one forward pass: batch statistics, the
+    running-average updates they produce, and the dropout key stream."""
+
+    def __init__(self, key, rate):
+        self.key = key
+        self.rate = rate
+        self.stats = {}
+
+    def dropout(self, x):
+        if self.rate <= 0.0:
+            return x
+        self.key, sub = jax.random.split(self.key)
+        keep = 1.0 - self.rate
+        mask = jax.random.bernoulli(sub, keep, x.shape)
+        return jnp.where(mask, x / keep, jnp.zeros_like(x))
+
+
+def _batch_norm(x, name, params, batch_stats, train: Optional[_Train], dtype):
+    p, s = params[name], batch_stats[name]
+    xf = x.astype(jnp.float32)
+    if train is None:
+        mean, var = s["mean"], s["var"]
+    else:
+        axes = tuple(range(x.ndim - 1))
+        mean = xf.mean(axes)
+        var = jnp.maximum(0.0, (xf * xf).mean(axes) - mean * mean)
+        train.stats[name] = {
+            "mean": BN_MOMENTUM * s["mean"] + (1 - BN_MOMENTUM) * mean,
+            "var": BN_MOMENTUM * s["var"] + (1 - BN_MOMENTUM) * var,
+        }
+    mul = lax.rsqrt(var + BN_EPSILON) * p["scale"]
+    y = (xf - mean) * mul + p["bias"]
+    return y.astype(dtype)
+
+
+def _conv(x, p, dtype):
+    y = lax.conv_general_dilated(
+        x.astype(dtype), p["kernel"].astype(dtype), (1, 1), "SAME",
+        dimension_numbers=_DN,
+    )
+    return y + p["bias"].astype(dtype)
+
+
+def _conv_transpose(x, p, dtype):
+    y = lax.conv_transpose(
+        x.astype(dtype), p["kernel"].astype(dtype), (2, 2), "VALID",
+        dimension_numbers=_DN,
+    )
+    return y + p["bias"].astype(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlobNet:
+    """init/apply over the parameter pytree (see module docstring).
+
+    apply(variables, x) returns (B, H, W) probabilities. With
+    train=True it normalizes with batch statistics, applies dropout
+    from `dropout_key`, and returns (probs, new_batch_stats)."""
+
     config: BlobNetConfig = BlobNetConfig()
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, x, *, train: bool = False):
+    def init(self, rng, x=None):
         cfg = self.config
-        x = x.astype(self.dtype)
+        lecun = jax.nn.initializers.lecun_normal()
+        keys = iter(jax.random.split(rng, 32))
+        params, stats = {}, {}
+
+        def conv(name, k, cin, cout):
+            params[name] = {
+                "kernel": lecun(next(keys), (k, k, cin, cout), jnp.float32),
+                "bias": jnp.zeros((cout,), jnp.float32),
+            }
+
+        def bn(name, ch):
+            params[name] = {
+                "scale": jnp.ones((ch,), jnp.float32),
+                "bias": jnp.zeros((ch,), jnp.float32),
+            }
+            stats[name] = {
+                "mean": jnp.zeros((ch,), jnp.float32),
+                "var": jnp.ones((ch,), jnp.float32),
+            }
+
+        cin = cfg.in_channels
+        for i, ch in enumerate(cfg.encoder_channels):
+            conv(f"Conv_{i}", 3, cin, ch)
+            bn(f"BatchNorm_{i}", ch)
+            params[f"PointWiseTemporal_{i}"] = {
+                f"mix_{j}": lecun(
+                    next(keys), (cfg.timestep, cfg.timestep), jnp.float32
+                )
+                for j in range(cfg.temporal_layers)
+            }
+            cin = ch
+        enc = list(cfg.encoder_channels)
+        skip_ch = enc[::-1][1:]
+        n_enc, n_dec = len(enc), len(cfg.decoder_channels)
+        for i, ch in enumerate(cfg.decoder_channels):
+            params[f"ConvTranspose_{i}"] = {
+                "kernel": lecun(next(keys), (4, 4, cin, ch), jnp.float32),
+                "bias": jnp.zeros((ch,), jnp.float32),
+            }
+            cin = ch
+            if i < n_dec - 1:
+                bn(f"BatchNorm_{n_enc + i}", ch)
+                cin = ch + skip_ch[i]
+        conv(f"Conv_{n_enc}", 1, cin, 1)
+        return {"params": params, "batch_stats": stats}
+
+    def apply(self, variables, x, *, train: bool = False, dropout_key=None):
+        cfg, dtype = self.config, self.dtype
+        params, batch_stats = variables["params"], variables["batch_stats"]
+        tr = None
+        if train:
+            if dropout_key is None and cfg.dropout > 0.0:
+                raise ValueError("train=True needs a dropout_key")
+            tr = _Train(dropout_key, cfg.dropout)
+        x = x.astype(dtype)
         b, t, h0, w0, _ = x.shape
+        n_enc = len(cfg.encoder_channels)
 
         # ---- encoder ----
         skips = []
-        for ch in cfg.encoder_channels:
+        for i, ch in enumerate(cfg.encoder_channels):
             bb, tt, hh, ww, cc = x.shape
             y = x.reshape(bb * tt, hh, ww, cc)
             # (1,3,3) Conv3D == per-timestep 3x3 Conv2D
-            y = nn.Conv(ch, (3, 3), padding="SAME", dtype=self.dtype)(y)
-            y = nn.relu(y)
-            y = nn.BatchNorm(
-                use_running_average=not train, dtype=self.dtype, axis_name=None
-            )(y)
-            x = y.reshape(bb, tt, hh, ww, ch)
-            x = _pool_pad(x)
-            x = PointWiseTemporal(
-                cfg.temporal_layers, cfg.timestep, cfg.dropout, self.dtype
-            )(x, train=train)
+            y = jax.nn.relu(_conv(y, params[f"Conv_{i}"], dtype))
+            y = _batch_norm(y, f"BatchNorm_{i}", params, batch_stats, tr, dtype)
+            x = _pool_pad(y.reshape(bb, tt, hh, ww, ch))
+            # Point-wise temporal block (reference: utils/model/pointwise.py):
+            # TxT dense mixes over the temporal axis, residual + relu.
+            hcur = x
+            mix = params[f"PointWiseTemporal_{i}"]
+            for j in range(cfg.temporal_layers):
+                w = mix[f"mix_{j}"].astype(dtype)
+                hcur = jax.nn.relu(jnp.einsum("bthwc,ts->bshwc", hcur, w))
+                if tr is not None:
+                    hcur = tr.dropout(hcur)
+            x = jax.nn.relu(hcur + x)
             skips.append(x)
 
         # ---- decoder: first temporal slice of reversed skips ----
@@ -165,39 +257,38 @@ class BlobNet(nn.Module):
         targets = [f.shape[1:3] for f in feats[1:]] + [(h0, w0)]
 
         x = feats[0]
-        for i, ch in enumerate(cfg.decoder_channels):
-            x = nn.relu(x)
-            x = nn.Dropout(cfg.dropout, deterministic=not train)(x)
-            x = nn.ConvTranspose(
-                ch, (4, 4), strides=(2, 2), padding="VALID", dtype=self.dtype
-            )(x)
-            th, tw = targets[i]
-            x = _crop_or_pad_center(x, th, tw)
-            if i < len(cfg.decoder_channels) - 1:
-                x = nn.BatchNorm(
-                    use_running_average=not train, dtype=self.dtype
-                )(x)
+        n_dec = len(cfg.decoder_channels)
+        for i in range(n_dec):
+            x = jax.nn.relu(x)
+            if tr is not None:
+                x = tr.dropout(x)
+            x = _conv_transpose(x, params[f"ConvTranspose_{i}"], dtype)
+            x = _crop_or_pad_center(x, *targets[i])
+            if i < n_dec - 1:
+                x = _batch_norm(
+                    x, f"BatchNorm_{n_enc + i}", params, batch_stats, tr, dtype
+                )
                 x = jnp.concatenate([x, feats[i + 1]], axis=-1)
 
-        x = nn.Conv(1, (1, 1), dtype=self.dtype)(x)
-        return nn.sigmoid(x.astype(jnp.float32))[..., 0]  # (B, H, W)
+        x = _conv(x, params[f"Conv_{n_enc}"], dtype)
+        probs = jax.nn.sigmoid(x.astype(jnp.float32))[..., 0]  # (B, H, W)
+        if tr is None:
+            return probs
+        return probs, tr.stats
 
 
 def create_blobnet(rng, config: BlobNetConfig = BlobNetConfig(), dtype=jnp.float32):
     """Init helper returning (model, variables)."""
     model = BlobNet(config, dtype)
-    dummy = jnp.zeros((1, config.timestep, 45, 80, config.in_channels), jnp.float32)
-    variables = model.init(rng, dummy, train=False)
-    return model, variables
+    return model, model.init(rng)
 
 
 def save_params_npz(path, variables, meta: dict | None = None) -> None:
-    """Persist a variables pytree as one flat .npz file — a
-    single-artifact alternative to an orbax checkpoint directory
-    (committed model weights live in artifacts/*.npz). `meta` stores a
-    JSON dict describing the input contract the weights were trained
-    for (in_channels, signed_mv, ...) under the "__meta__" key; readers
-    use `load_meta_npz`."""
+    """Persist a variables pytree as one flat .npz file (committed model
+    weights live in artifacts/*.npz). `meta` stores a JSON dict
+    describing the input contract the weights were trained for
+    (in_channels, signed_mv, ...) under the "__meta__" key; readers use
+    `load_meta_npz`."""
     import json as _json
 
     import numpy as np

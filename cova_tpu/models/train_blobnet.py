@@ -3,9 +3,10 @@
 Replaces the reference Keras training (reference: utils/train-blobnet.py):
 Adam, smoothed Jaccard distance, 20 epochs with exponential LR decay
 (x e^-0.1 per epoch) after epoch 10, batch 4; plus upgrades the reference
-lacks (SURVEY.md §5.3-5.4): orbax checkpointing and graceful SIGINT stop
-are handled by the caller; the step itself is pure and mesh-ready (data
-parallel over the `stream` axis).
+lacks (SURVEY.md §5.3-5.4): best-epoch selection, and a graceful SIGINT
+stop handled by the caller; the step itself is pure and mesh-ready (data
+parallel over the `stream` axis). Weights are saved as .npz
+(models.blobnet.save_params_npz).
 """
 
 from __future__ import annotations
@@ -51,7 +52,10 @@ def make_train_step(
     signed_mv: bool = False,
 ):
     @functools.partial(jax.jit, donate_argnums=(0,))
-    def train_step(state: tuple, batch):
+    def train_step(state: tuple, batch, dropout_key):
+        """One Adam step. Batch statistics replace the running ones in
+        the forward pass and come back updated; dropout masks come from
+        `dropout_key`, so a step is a pure function of its arguments."""
         params, batch_stats, opt_state = state
         x, y = batch
         # The model's input contract is clip(x,0,6)/6-normalized metadata
@@ -64,14 +68,13 @@ def make_train_step(
         x = clip6_normalize(x, signed_mv)
 
         def loss_fn(p):
-            out, updates = model.apply(
+            out, new_stats = model.apply(
                 {"params": p, "batch_stats": batch_stats},
                 x,
                 train=True,
-                mutable=["batch_stats"],
-                rngs={"dropout": jax.random.PRNGKey(0)},
+                dropout_key=dropout_key,
             )
-            return jaccard_distance_loss(y, out), (out, updates["batch_stats"])
+            return jaccard_distance_loss(y, out), (out, new_stats)
 
         (loss, (out, new_stats)), grads = jax.value_and_grad(
             loss_fn, has_aux=True
@@ -99,7 +102,8 @@ def train_blobnet(
     """dataset: iterable of (x (B,T,H,W,C) float, y (B,H,W) float) per
     epoch (call iter each epoch). Returns (model, variables)."""
     rng = rng if rng is not None else jax.random.PRNGKey(0)
-    model, variables = create_blobnet(rng, config, dtype)
+    init_rng, drop_rng = jax.random.split(rng)
+    model, variables = create_blobnet(init_rng, config, dtype)
     steps_per_epoch = getattr(dataset, "steps_per_epoch", 1000)
     tx = optax.adam(lr_schedule(base_lr, 10, steps_per_epoch))
     params = variables["params"]
@@ -114,7 +118,9 @@ def train_blobnet(
         ep_loss = ep_prec = ep_rec = 0.0
         nb = 0
         for batch in dataset:
-            state, metrics = step_fn(state, batch)
+            state, metrics = step_fn(
+                state, batch, jax.random.fold_in(drop_rng, step)
+            )
             step += 1
             ep_loss += float(metrics["loss"])
             ep_prec += float(metrics["precision"])

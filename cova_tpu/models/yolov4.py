@@ -7,7 +7,7 @@ feature aggregation and three YOLO heads, matching the standard
 yolov4-608 topology so released darknet weights load directly (see
 `load_darknet_weights`).
 
-TPU-first notes: NHWC layout, bfloat16 compute with float32
+Design notes: NHWC layout, bfloat16 compute with float32
 params/statistics, static 608x608 input, decode + NMS on device
 (cova_tpu.ops.nms, nms-iou 0.2 per the reference config). Mish is
 computed as x * tanh(softplus(x)) which XLA fuses into the conv

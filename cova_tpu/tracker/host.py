@@ -1,6 +1,6 @@
 """Host-side CC + SORT (ctypes over csrc/cctrack.cc).
 
-The compressed-domain stage's dense FLOPs (BlobNet) run on the TPU; the
+The compressed-domain stage's dense FLOPs (BlobNet) run on the GPU; the
 branchy integer control logic — connected components over the 80x45
 macroblock mask and the SORT lifecycle — runs here, exactly where the
 reference runs it (bboxcc's OpenCV CC and the cova-rs/sort crate are

@@ -1,7 +1,7 @@
 """Core array types for the compressed-domain pipeline.
 
 The reference keeps boxes as ``Vec<Bbox>`` with per-box structs serialized
-with bincode (reference: cova-rs/bbox/src/bbox.rs:1-131).  On TPU, variable
+with bincode (reference: cova-rs/bbox/src/bbox.rs:1-131).  Here variable
 length box lists become fixed-capacity struct-of-arrays with a validity
 mask so every shape is static under jit.
 

@@ -5,7 +5,7 @@ utils/generate-mog.py: MOG2(history=9000, varThreshold=32, no shadows)
 on 640x360 frames, fgMask>0, morph close 4x4, open 6x6, contour fill,
 then [::8,::8] downsample to the 80x45 macroblock grid).
 
-TPU-first: the Gaussian-mixture update (Zivkovic 2004, the algorithm
+On the accelerator: the Gaussian-mixture update (Zivkovic 2004, the algorithm
 behind cv2's MOG2) is pure per-pixel arithmetic, so it runs as a
 `lax.scan` over frames with (K=4)-component mixture state per pixel —
 the whole video's labels are produced in one jitted pass. Morphology is

@@ -8,13 +8,12 @@ pipeline/naive/pipeline.py, README.md:290 — but commits no artifact).
 Both sides run the SAME oracle detector (the deterministic stand-in,
 cova_tpu/models/bgdet.py) on the same machine: naive decodes and infers
 every frame; CoVA entropy-decodes every frame on the host, runs
-BlobNet on the TPU, and fully decodes + infers only the frames its
+BlobNet on the accelerator, and fully decodes + infers only the frames its
 selector schedules. The speedup is therefore the measured value of the
 compressed-domain premise at system level, not a stage microbenchmark.
 
 Per bench.py's convention both wall and process-CPU elapsed are
-recorded (this 1-core guest has weather-dependent steal; cpu is the
-steal-independent basis) plus the fixed-work cpu_calib_mips probe.
+recorded, plus the fixed-work cpu_calib_mips probe.
 
 Usage: python examples/fig8.py [--out FIG8.json] [--inputs demo,1080p,...]
 Writes one JSON artifact with a row per input:
@@ -190,8 +189,8 @@ def main():
         "metric": "fig8_elapsed_speedup",
         "description": (
             "end-to-end elapsed: naive full-decode+infer vs CoVA, same "
-            "input, same stand-in oracle detector, 1 TPU chip + 1 host "
-            "core (reference paper Fig. 8 analog)"
+            "input, same stand-in oracle detector, one accelerator "
+            "(reference paper Fig. 8 analog)"
         ),
         "value_basis": "wall (speedup) + process-cpu (speedup_cpu)",
         "rows": rows,

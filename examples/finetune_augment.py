@@ -86,10 +86,12 @@ def main():
     step = make_train_step(model, tx, signed_mv=signed)
     params = variables["params"]
     state = (params, variables["batch_stats"], tx.init(params))
+    drop_key, n_step = jax.random.PRNGKey(0), 0
     for epoch in range(epochs):
         el = ep = er = nb = 0
         for batch in ds:
-            state, m = step(state, batch)
+            state, m = step(state, batch, jax.random.fold_in(drop_key, n_step))
+            n_step += 1
             el += float(m["loss"])
             ep += float(m["precision"])
             er += float(m["recall"])

@@ -29,7 +29,9 @@ Scene (1280x720, 30 fps, default 1800 frames = 60 s, seed-determined):
     (exercises the aggregator's stationary machinery).
 
 Usage: python examples/make_synth.py [OUT.mp4] [frames] [--seed N]
-Default: /tmp/cova_synth/synth.mp4, 1800 frames.
+Default: build_out/synth/synth.mp4, 1800 frames. The default clip is
+committed as artifacts/synth.mp4 (golden/synth/inputs.json records its
+sha256), so hosts without libx264 run it too.
 """
 
 import os
@@ -64,7 +66,13 @@ FPS = 30
 # a slow leader) packed close enough for BlobNet dilation to merge.
 # v6: occluder gates at the scene edges (see GATES) — objects emerge
 # fully sized, so entry-clipped area never poisons the class vote.
-RECIPE = "v6"
+# v7: same scene, encoded with ONE x264 thread. libx264's frame-threaded
+# encoder picks its thread count from the host's cores (1.5x) and its
+# bitstream depends on that count, so v6 clips differed between hosts;
+# golden/synth and artifacts/blobnet_synth.npz come from a 1-core host,
+# whose encode v7 reproduces byte for byte on any host.
+RECIPE = "v7"
+X264_OPTS = "threads=1"
 
 
 def build_background(rng):
@@ -313,7 +321,7 @@ def render(out_mp4, frames=1800, seed=11):
         )
     rec = str(out_mp4) + ".rec"
     proc = subprocess.Popen(
-        [str(tool), "-", rec, f"{W}x{H}", "", "23"],
+        [str(tool), "-", rec, f"{W}x{H}", X264_OPTS, "23"],
         stdin=subprocess.PIPE,
     )
     # Per-frame sensor noise comes from a SEPARATE per-frame generator
@@ -344,7 +352,8 @@ def render(out_mp4, frames=1800, seed=11):
     return str(out_mp4)
 
 
-def build_synth(out_mp4="/tmp/cova_synth/synth.mp4", frames=1800, seed=11):
+def build_synth(out_mp4=str(REPO / "build_out" / "synth" / "synth.mp4"),
+                frames=1800, seed=11):
     """Cached build (validated like make_dataset2.build_1080p, plus a
     recipe-tag sidecar: dims/sample-count can't distinguish two
     procedural recipes)."""
@@ -373,7 +382,7 @@ def build_synth(out_mp4="/tmp/cova_synth/synth.mp4", frames=1800, seed=11):
 
 if __name__ == "__main__":
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
-    out = args[0] if args else "/tmp/cova_synth/synth.mp4"
+    out = args[0] if args else str(REPO / "build_out" / "synth" / "synth.mp4")
     frames = int(args[1]) if len(args) > 1 else 1800
     seed = 11
     if "--seed" in sys.argv:

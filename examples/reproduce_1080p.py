@@ -1,10 +1,7 @@
 #!/usr/bin/env python3
 """Accuracy at the north star's stated operating point: 1080p.
 
-Rounds 1-4 proved the two halves of the north star (>=10x real-time
-@1080p AND query accuracy) on DIFFERENT configurations — throughput on
-the 1080p stream (BENCH_1080P.json), accuracy only at 720p. This script
-closes that gap (VERDICT r4 next #1): the full
+Query accuracy on the 1080p stream (VERDICT r4 next #1): the full
 naive-GT -> CoVA -> BP/GC flow of examples/reproduce_accuracy.py, on
 the 1080p evaluation stream (examples/make_dataset2.py build_1080p,
 120x68 MB grid).

@@ -4,7 +4,8 @@
 Every other committed dataset derives from the single 60-second
 amsterdam demo clip; this one is a genuinely different SCENE —
 examples/make_synth.py's procedural intersection, rendered and encoded
-offline through the first-party libx264 path. The full
+offline through the first-party libx264 path (committed as
+artifacts/synth.mp4). The full
 naive-GT -> CoVA -> BP/GC flow of examples/reproduce_accuracy.py runs
 here with the synth-trained weights (artifacts/blobnet_synth.npz) at
 the synth operating point, and the report additionally records the
@@ -65,9 +66,9 @@ def main():
     out_dir = pathlib.Path(args[0] if args else "/tmp/cova_accuracy_synth")
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    from examples.make_synth import build_synth
-
-    video = build_synth()
+    # The committed clip is make_synth.build_synth()'s output
+    # (golden/synth/inputs.json), so no encoder is needed here.
+    video = str(REPO / "artifacts" / "synth.mp4")
 
     from cova_tpu.codec import Mp4Demuxer
     from cova_tpu.config import (

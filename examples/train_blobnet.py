@@ -3,11 +3,12 @@
 
 Replaces the reference's three-step flow (generate-mog.py ->
 generate-record.sh -> train-blobnet.py) with one command: full decode +
-MOG2 labels (on TPU), entropy-decoded metadata windows, Jaccard-loss
-training, orbax checkpoint.
+MOG2 labels (on the accelerator), entropy-decoded metadata windows,
+Jaccard-loss training, weights saved as OUT_DIR/weights.npz (the
+artifacts/*.npz format that models.blobnet.load_artifact reads).
 
 Usage:
-  python examples/train_blobnet.py VIDEO.mp4 CKPT_DIR [epochs] [max_frames]
+  python examples/train_blobnet.py VIDEO.mp4 OUT_DIR [epochs] [max_frames]
       [--nnz] [--signed] [--augment]
 
 --nnz adds the residual-density 4th input channel; --signed trains on
@@ -31,14 +32,13 @@ def main():
     use_nnz = "--nnz" in sys.argv
     signed_mv = "--signed" in sys.argv
     augment = "--augment" in sys.argv
-    video = args[0] if len(args) > 0 else "/root/reference/demo/1m.mp4"
-    ckpt_dir = args[1] if len(args) > 1 else "/tmp/blobnet_ckpt"
+    if len(args) < 2:
+        sys.exit(__doc__)
+    video, ckpt_dir = args[0], args[1]
     epochs = int(args[2]) if len(args) > 2 else 20
     max_frames = int(args[3]) if len(args) > 3 else None
 
-    import jax
     import numpy as np
-    import orbax.checkpoint as ocp
 
     from cova_tpu.models.blobnet import BlobNetConfig
     from cova_tpu.models.train_blobnet import train_blobnet
@@ -82,14 +82,6 @@ def main():
         log_every=100,
         signed_mv=signed_mv,
     )
-
-    path = ocp.test_utils.erase_and_create_empty(
-        os.path.abspath(os.path.join(ckpt_dir, "final"))
-    )
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(path / "state", variables)
-    ckptr.wait_until_finished()
-    print(f"checkpoint saved to {path}/state")
 
     from cova_tpu.models.blobnet import save_params_npz
 

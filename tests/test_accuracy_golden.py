@@ -212,8 +212,8 @@ class TestSweepHarness:
         of the same configuration — its host replay and GT-lookup
         shortcut stand in for the full pipeline during knob sweeps, so
         any drift here invalidates sweep conclusions. Runs on a clip
-        prefix so the check is cheap on the CPU test platform (on TPU
-        with the full clip the replay reproduces golden/demo/report.json
+        prefix so the check is cheap on the CPU test platform (with
+        the full clip the replay reproduces golden/demo/report.json
         exactly; see sweep_accuracy.py's __main__ validation)."""
         import os
         import sys
@@ -370,9 +370,7 @@ class TestGoldenMetricsDemo1080:
     `examples/reproduce_1080p.py --golden` on the 1080p evaluation
     stream (examples/make_dataset2.py build_1080p, 120x68 MB grid) with
     the 1080p-trained weights (artifacts/blobnet_demo1080.npz) at the
-    committed operating point (mask 0.6 / cc 7 — ACCURACY.md "1080p").
-    Together with BENCH_1080P.json (805.6 cpu-fps on the same stream)
-    this pins BOTH halves of the north star on ONE configuration."""
+    committed operating point (mask 0.6 / cc 7 — ACCURACY.md "1080p")."""
 
     @pytest.fixture(scope="class")
     def report1080(self):

@@ -1,10 +1,15 @@
-"""BlobNet model tests: shapes at reference geometry, gradient flow,
-and loss parity properties."""
+"""BlobNet model tests: shapes at reference geometry, parity with the
+stored outputs of the earlier Flax module, gradient flow, the train
+step, and loss parity properties."""
+
+import pathlib
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 from cova_tpu.models.blobnet import BlobNet, BlobNetConfig, create_blobnet
 from cova_tpu.models.losses import jaccard_distance_loss, precision_recall
@@ -27,11 +32,8 @@ class TestBlobNet:
         # (pool + odd-dim zero-pad, encoder.py:63-71).
         model, variables = model_vars
         x = jnp.zeros((1, 4, 45, 80, 3))
-        _, intermediates = model.apply(
-            variables, x, train=False, capture_intermediates=True
-        )
-        # Shape ladder is implied by a successful forward pass; verify
-        # the skip geometry via a manual trace of _pool_pad.
+        assert model.apply(variables, x, train=False).shape == (1, 45, 80)
+        # Verify the skip geometry via a manual trace of _pool_pad.
         from cova_tpu.models.blobnet import _pool_pad
 
         h, w = 45, 80
@@ -85,9 +87,137 @@ class TestBlobNet:
         cfg = BlobNetConfig()
         model = BlobNet(cfg)
         x = jnp.zeros((1, 4, 68, 120, 3))
-        variables = model.init(jax.random.PRNGKey(0), x, train=False)
+        variables = model.init(jax.random.PRNGKey(0))
         y = model.apply(variables, x, train=False)
         assert y.shape == (1, 68, 120)
+
+
+FIXTURE = pathlib.Path(__file__).parent / "data" / "blobnet_flax_fixture.npz"
+
+
+def _fixture_input(channels):
+    return np.random.default_rng(7).uniform(
+        -1, 1, (2, 4, 45, 80, channels)
+    ).astype(np.float32)
+
+
+def _synth_variables(channels):
+    """artifacts/blobnet_synth.npz; with channels=3 its nnz input
+    channel is dropped, which makes a 3-channel BlobNet."""
+    from cova_tpu.models.blobnet import load_artifact
+
+    _, v, _ = load_artifact(REPO / "artifacts" / "blobnet_synth.npz")
+    if channels == 3:
+        params = dict(v["params"])
+        params["Conv_0"] = {
+            "kernel": v["params"]["Conv_0"]["kernel"][:, :, :3, :],
+            "bias": v["params"]["Conv_0"]["bias"],
+        }
+        v = {"params": params, "batch_stats": v["batch_stats"]}
+    return v
+
+
+class TestFlaxParity:
+    """tests/data/blobnet_flax_fixture.npz holds what the earlier Flax
+    BlobNet module computed, on the CPU at "highest" matmul precision,
+    from the committed synth weights on a seeded input: eval
+    probabilities for the 4-channel artifact and its 3-channel cut, and
+    a train-mode forward (dropout 0) with its updated running
+    statistics. The plain-JAX module must reproduce them."""
+
+    @pytest.fixture(scope="class")
+    def fixture(self):
+        return np.load(FIXTURE)
+
+    @pytest.mark.parametrize("channels", [4, 3])
+    def test_eval_probabilities(self, fixture, channels):
+        x = _fixture_input(channels)
+        assert x.astype(np.float64).sum() == pytest.approx(
+            float(fixture[f"x_checksum{channels}"]), rel=1e-12
+        )
+        model = BlobNet(BlobNetConfig(in_channels=channels))
+        with jax.default_matmul_precision("highest"):
+            got = model.apply(_synth_variables(channels), jnp.asarray(x))
+        np.testing.assert_allclose(
+            np.asarray(got), fixture[f"probs_synth{channels}"], atol=1e-6
+        )
+
+    def test_train_forward_and_batch_stats(self, fixture):
+        model = BlobNet(BlobNetConfig(in_channels=4, dropout=0.0))
+        with jax.default_matmul_precision("highest"):
+            got, stats = model.apply(
+                _synth_variables(4), jnp.asarray(_fixture_input(4)),
+                train=True,
+            )
+        np.testing.assert_allclose(
+            np.asarray(got), fixture["probs_train4"], atol=1e-6
+        )
+        assert sorted(stats) == [f"BatchNorm_{i}" for i in range(7)]
+        for name, s in stats.items():
+            for k in ("mean", "var"):
+                np.testing.assert_allclose(
+                    np.asarray(s[k]), fixture[f"stats/{name}/{k}"],
+                    rtol=1e-5, atol=1e-6,
+                )
+
+    def test_artifacts_load_unchanged(self):
+        """Every committed weight file restores into the plain-JAX
+        parameter tree with no key or shape left over."""
+        from cova_tpu.models.blobnet import load_artifact
+
+        for path in sorted((REPO / "artifacts").glob("blobnet_*.npz")):
+            _, v, meta = load_artifact(path)
+            keys = set(np.load(path).files) - {"__meta__"}
+            flat = jax.tree_util.tree_flatten_with_path(v)[0]
+            got = {"/".join(p.key for p in kp) for kp, _ in flat}
+            assert got == keys, path.name
+            assert v["params"]["Conv_0"]["kernel"].shape[2] == meta["in_channels"]
+
+
+class TestTrainStep:
+    def _setup(self):
+        import optax
+
+        from cova_tpu.models.train_blobnet import make_train_step
+
+        model, variables = create_blobnet(jax.random.PRNGKey(1))
+        tx = optax.adam(1e-3)
+        rng = np.random.default_rng(2)
+        x = jnp.asarray(rng.integers(0, 256, (2, 4, 45, 80, 3)), jnp.float32)
+        y = jnp.asarray(rng.uniform(size=(2, 45, 80)) > 0.8, jnp.float32)
+
+        def state():
+            p = jax.tree_util.tree_map(jnp.array, variables["params"])
+            s = jax.tree_util.tree_map(jnp.array, variables["batch_stats"])
+            return (p, s, tx.init(p))
+
+        return make_train_step(model, tx), state, (x, y), variables
+
+    def test_updates_batch_stats_deterministically(self):
+        step, state, batch, variables = self._setup()
+        key = jax.random.PRNGKey(5)
+        (p1, s1, _), m1 = step(state(), batch, key)
+        (p2, s2, _), m2 = step(state(), batch, key)
+        # Same dropout key: the same step, bit for bit.
+        assert float(m1["loss"]) == float(m2["loss"])
+        for a, b in zip(jax.tree_util.tree_leaves((p1, s1)),
+                        jax.tree_util.tree_leaves((p2, s2))):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        # Running statistics moved toward the batch's.
+        for name, s in s1.items():
+            before = variables["batch_stats"][name]["mean"]
+            assert not np.array_equal(np.asarray(s["mean"]), np.asarray(before)), name
+
+    def test_dropout_key_changes_step(self):
+        step, state, batch, _ = self._setup()
+        _, m1 = step(state(), batch, jax.random.PRNGKey(5))
+        _, m2 = step(state(), batch, jax.random.PRNGKey(6))
+        assert float(m1["loss"]) != float(m2["loss"])
+
+    def test_train_needs_dropout_key(self):
+        model, variables = create_blobnet(jax.random.PRNGKey(0))
+        with pytest.raises(ValueError, match="dropout_key"):
+            model.apply(variables, jnp.zeros((1, 4, 45, 80, 3)), train=True)
 
 
 class TestLosses:
@@ -138,19 +268,19 @@ class TestTrainInferenceContract:
 
         # Reference loss computed with explicit normalization outside —
         # before the step call, which donates (deletes) its input state.
+        key = jax.random.PRNGKey(0)
         out = model.apply(
             {"params": variables["params"],
              "batch_stats": variables["batch_stats"]},
             clip6_normalize(jnp.asarray(x)),
             train=True,
-            mutable=["batch_stats"],
-            rngs={"dropout": jax.random.PRNGKey(0)},
+            dropout_key=key,
         )[0]
         expected = float(jaccard_distance_loss(jnp.asarray(y), out))
 
         params = variables["params"]
         state = (params, variables["batch_stats"], tx.init(params))
-        _, metrics = step(state, (jnp.asarray(x), jnp.asarray(y)))
+        _, metrics = step(state, (jnp.asarray(x), jnp.asarray(y)), key)
         assert float(metrics["loss"]) == pytest.approx(expected, rel=1e-5)
 
 

@@ -2,9 +2,9 @@
 
 The reference's only training checkpoint is Keras save_model
 (reference: utils/train-blobnet.py:117-119) and its runtime artifacts
-are cached TensorRT engines; here orbax checkpoints are the single
-artifact format — these tests pin the save/restore round trip that
-examples/train_blobnet.py (save) and examples/run_cova.py
+are cached TensorRT engines; here one self-describing .npz file is the
+single artifact format — these tests pin the save/restore round trip
+that examples/train_blobnet.py (save) and examples/run_cova.py
 (COVA_BLOBNET_CKPT load) rely on.
 """
 
@@ -21,22 +21,24 @@ DEMO = "/root/reference/demo/1m.mp4"
 
 
 class TestOrbaxRoundTrip:
+    """(Named for the checkpoint format it replaced.)"""
+
     def test_blobnet_variables_roundtrip(self, tmp_path):
-        import orbax.checkpoint as ocp
+        from cova_tpu.models.blobnet import (
+            BlobNetConfig,
+            create_blobnet,
+            load_artifact,
+            save_params_npz,
+        )
 
-        from cova_tpu.models.blobnet import BlobNetConfig, create_blobnet
-
-        # Tiny grid keeps the CPU forward pass fast.
         model, variables = create_blobnet(
             jax.random.PRNGKey(3), BlobNetConfig()
         )
 
-        path = os.path.join(tmp_path, "ckpt")
-        ckptr = ocp.StandardCheckpointer()
-        ckptr.save(os.path.abspath(path), variables)
-        ckptr.wait_until_finished()
-
-        restored = ckptr.restore(os.path.abspath(path))
+        path = os.path.join(tmp_path, "weights.npz")
+        save_params_npz(path, variables, meta={"in_channels": 3})
+        _, restored, meta = load_artifact(path)
+        assert meta == {"in_channels": 3}
 
         flat_a = jax.tree_util.tree_leaves_with_path(variables)
         flat_b_map = dict(jax.tree_util.tree_leaves_with_path(restored))

@@ -33,11 +33,11 @@ def build_tools():
     tools; building only when the binary is missing once let a stale
     selftest validate outdated decoder code.
     """
-    import subprocess
+    from cova_tpu import codec
 
-    csrc = pathlib.Path(__file__).parent.parent / "cova_tpu" / "csrc"
-    subprocess.run(["make", "-s", "-C", str(csrc), "tools"], check=True)
-    tools = csrc / "tools"
+    codec.lib()  # the libraries first: `make clean` may precede them
+    codec.run_make("tools")
+    tools = codec._DIR / "tools"
     return tools / "make_test_stream", tools / "entdec_selftest"
 
 

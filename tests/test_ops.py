@@ -352,40 +352,3 @@ class TestNMS:
         cls = jnp.asarray(np.array([0, 1], np.int32))
         _, _, _, valid = batched_nms(boxes, scores, cls, 0.2, 0.25, 4)
         assert int(valid.sum()) == 2  # different classes don't suppress
-
-
-class TestPallasCC:
-    """The Pallas VMEM-resident CC kernel must agree with the XLA op
-    (runs in interpreter mode off-TPU)."""
-
-    def _pallas(self, masks):
-        import jax
-
-        from cova_tpu.ops.pallas.cc_kernel import connected_components_pallas
-
-        interpret = jax.default_backend() != "tpu"
-        return np.asarray(
-            connected_components_pallas(
-                jnp.asarray(masks), num_sweeps=64, interpret=interpret
-            )
-        )
-
-    def test_matches_xla_random(self):
-        import jax
-
-        rng = np.random.default_rng(3)
-        masks = rng.uniform(size=(4, 45, 80)) < 0.3
-        ref = np.asarray(
-            jax.vmap(lambda m: connected_components(m, 32))(jnp.asarray(masks))
-        )
-        np.testing.assert_array_equal(self._pallas(masks), ref)
-
-    def test_spiral(self):
-        mask = np.zeros((45, 80), bool)
-        mask[0, :] = True
-        mask[:, 79] = True
-        mask[44, 2:] = True
-        mask[4:45, 2] = True
-        mask[4, 2:70] = True
-        lab = self._pallas(mask[None])[0]
-        assert len(np.unique(lab[mask])) == 1
